@@ -15,9 +15,9 @@ if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
 
 
 def main(width=640, height=480, spp=2):
-    from raycore_tpu.render.scenes import example_scene
-    from raycore_tpu.render.wavefront import WavefrontRenderer, RenderConfig
-    from raycore_tpu.render.debug_viz import save_png
+    from raycore.render.scenes import example_scene
+    from raycore.render.wavefront import WavefrontRenderer, RenderConfig
+    from raycore.render.debug_viz import save_png
 
     scene, materials, lights, camera = example_scene()
     r = WavefrontRenderer(scene, materials, lights, camera,

@@ -1,7 +1,7 @@
 // Minimal fast Wavefront OBJ loader (vertices + triangulated faces).
 //
 // The reference ingests meshes through Julia's GeometryBasics; a production
-// TPU serving stack needs a native asset path. Exposed through a tiny C ABI
+// serving stack needs a native asset path. Exposed through a tiny C ABI
 // consumed from Python with ctypes (no pybind11 in this image):
 //
 //   int obj_count(const char* path, long* n_vertices, long* n_faces);

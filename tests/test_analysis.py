@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.scene.tlas import TLAS
-from raycore_tpu.analysis import kernels as ak
-from raycore_tpu.analysis.collision import collide_instances, collide_instances_any
-from raycore_tpu.collections import multitypeset as mts
-from raycore_tpu.render.wavefront import WavefrontRenderer, RenderConfig
-from raycore_tpu.render.scenes import example_scene
+import raycore as rc
+from raycore.scene.tlas import TLAS
+from raycore.analysis import kernels as ak
+from raycore.analysis.collision import collide_instances, collide_instances_any
+from raycore.collections import multitypeset as mts
+from raycore.render.wavefront import WavefrontRenderer, RenderConfig
+from raycore.render.scenes import example_scene
 
 
 def sphere_scene(radius=1.0):
@@ -223,9 +223,9 @@ def test_wavefront_render_smoke():
 
 def test_wavefront_staged_matches_single_jit():
     """render_staged hoists the three traversal queries out of the frame
-    jit (so dispatch can pick the fast Pallas engines) — the math must
+    jit (so dispatch can pick the sweep engines) — the math must
     stay identical to the single-jit render_step."""
-    from raycore_tpu.render.wavefront import render_staged, render_step
+    from raycore.render.wavefront import render_staged, render_step
     scene, materials, lights, camera = example_scene()
     cfg = RenderConfig(width=48, height=32, spp=1, tile_size=1024)
     key = jax.random.PRNGKey(3)
@@ -239,7 +239,7 @@ def test_wavefront_staged_pipelined_matches():
     """pipelined=True (deferred whole-frame query chain, one validation
     sync at frame end) must be bit-identical to the per-query staged
     frame: deferral removes host syncs, never changes the math."""
-    from raycore_tpu.render.wavefront import render_staged
+    from raycore.render.wavefront import render_staged
     scene, materials, lights, camera = example_scene()
     cfg = RenderConfig(width=48, height=32, spp=1, tile_size=1024)
     key = jax.random.PRNGKey(3)
@@ -255,10 +255,10 @@ def test_dispatch_routes_warm_regroup(monkeypatch):
     (scene, shape) — via rc.prewarm or a previous direct query —
     dispatch must auto-route matching big queries to it, with results
     identical to the worklist engine."""
-    from raycore_tpu.accel import dispatch as disp
-    from raycore_tpu.accel.dense import build_dense
-    from raycore_tpu.ops.pallas_regroup import has_warm_capacity
-    import raycore_tpu as rc_
+    from raycore.accel import dispatch as disp
+    from raycore.accel.dense import build_dense
+    from raycore.ops.pallas_regroup import has_warm_capacity
+    import raycore as rc_
     mesh = rc_.displaced_grid_mesh(n=24, extent=2.0, amplitude=0.3)
     scene = build_dense(mesh, cluster_size=64)
     n = 45 * 45
@@ -280,44 +280,14 @@ def test_dispatch_routes_warm_regroup(monkeypatch):
                                np.asarray(cold.t)[m], rtol=1e-5, atol=1e-6)
 
 
-def test_dispatch_routes_warm_packed_subc1(monkeypatch):
-    """A SUBC=1 scene explicitly prewarmed for the PACKED engine
-    (cluster-granularity candidates, block-diagonal K-packing) must
-    auto-route through dispatch — the opt-in that makes packed the
-    product default when it wins the bench on sub_chunks=1 scenes."""
-    from raycore_tpu.accel import dispatch as disp
-    from raycore_tpu.accel.dense import build_dense
-    from raycore_tpu.ops.pallas_regroup import has_warm_capacity_packed
-    import raycore_tpu as rc_
-    mesh = rc_.displaced_grid_mesh(n=24, extent=2.0, amplitude=0.3)
-    scene = build_dense(mesh, cluster_size=64)      # sub_chunks == 1
-    n = 45 * 45
-    monkeypatch.setattr(disp, "REGROUP_MIN_RAYS", n)
-    xs = jnp.linspace(-0.9, 0.9, 45)
-    X, Y = jnp.meshgrid(xs, xs, indexing="ij")
-    o = jnp.stack([X, Y, jnp.full_like(X, 2.0)], -1).reshape(-1, 3)
-    rays = rc_.Ray.create(o=o, d=jnp.broadcast_to(
-        jnp.asarray([0.0, 0, -1.0]), o.shape))
-    assert not has_warm_capacity_packed(scene, n)
-    cold = disp.scene_closest_hit(scene, rays)        # worklist engine
-    rc_.prewarm(scene, n, engine="packed")
-    assert has_warm_capacity_packed(scene, n)
-    warm = disp.scene_closest_hit(scene, rays)        # packed engine
-    np.testing.assert_array_equal(np.asarray(cold.hit),
-                                  np.asarray(warm.hit))
-    m = np.asarray(cold.hit)
-    np.testing.assert_allclose(np.asarray(warm.t)[m],
-                               np.asarray(cold.t)[m], rtol=1e-5, atol=1e-6)
-
-
 def test_warm_capacity_survives_process_restart(monkeypatch, tmp_path):
     """VERDICT r3 task 7: capacity hints persist next to the compile
     cache, so a FRESH process (simulated here by clearing the in-memory
     caches) still routes query 1 to the fast engine and the fused path
     uses the persisted capacity predictions."""
-    from raycore_tpu.accel.dense import build_dense
-    from raycore_tpu.ops import capacity_store, pallas_regroup as pr
-    import raycore_tpu as rc_
+    from raycore.accel.dense import build_dense
+    from raycore.ops import capacity_store, pallas_regroup as pr
+    import raycore as rc_
     monkeypatch.setenv("RAYCORE_CAPACITY_DIR", str(tmp_path))
     monkeypatch.setattr(capacity_store, "_LOADED", None)
     mesh = rc_.displaced_grid_mesh(n=24, extent=2.0, amplitude=0.3)
@@ -329,7 +299,6 @@ def test_warm_capacity_survives_process_restart(monkeypatch, tmp_path):
     # "Process restart": wipe RAM caches + the store's loaded copy, and
     # rebuild the scene so even the weakref identity is fresh.
     pr._CAPACITY_CACHE.clear()
-    pr._PACKED_CACHE.clear()
     monkeypatch.setattr(capacity_store, "_LOADED", None)
     scene2 = build_dense(mesh, cluster_size=64)
     assert pr.has_warm_capacity(scene2, n)
@@ -340,7 +309,7 @@ def test_warm_capacity_survives_process_restart(monkeypatch, tmp_path):
     rays = rc_.Ray.create(o=o, d=jnp.broadcast_to(
         jnp.asarray([0.0, 0, -1.0]), o.shape))
     warm = pr.closest_hit_regrouped(scene2, rays, tile=2048, passes=1)
-    from raycore_tpu.accel.brute import closest_hit_brute
+    from raycore.accel.brute import closest_hit_brute
     ref = closest_hit_brute(mesh, rays)
     np.testing.assert_array_equal(np.asarray(warm.hit),
                                   np.asarray(ref.hit))
@@ -361,11 +330,11 @@ def test_dispatch_routes_warm_multiwave_scene(monkeypatch):
     (passes=1) misses it. Dispatch must probe the auto-resolved key
     first (accel/dispatch.py) and route the query to the regrouped
     engine, with results matching the brute oracle."""
-    from raycore_tpu.accel import dispatch as disp
-    from raycore_tpu.accel.brute import closest_hit_brute
-    from raycore_tpu.accel.dense import build_dense
-    from raycore_tpu.ops import pallas_regroup as pr
-    import raycore_tpu as rc_
+    from raycore.accel import dispatch as disp
+    from raycore.accel.brute import closest_hit_brute
+    from raycore.accel.dense import build_dense
+    from raycore.ops import pallas_regroup as pr
+    import raycore as rc_
     mesh = rc_.blobby_mesh(n_theta=72, n_phi=72)
     scene = build_dense(mesh, cluster_size=64)
     if pr.auto_passes(scene) == 1:         # guard: need a multiwave scene

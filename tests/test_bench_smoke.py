@@ -21,8 +21,7 @@ def _run(env_extra, args=None):
 @pytest.mark.slow
 def test_bench_emits_json_line():
     out = _run({"RAYCORE_BENCH_TRIS": "2000", "RAYCORE_BENCH_RAYS": "4096",
-                "RAYCORE_BENCH_REPS": "1", "RAYCORE_BENCH_TILE": "256",
-                "RAYCORE_BENCH_CLUSTER": "64"})
+                "RAYCORE_BENCH_REPS": "1", "RAYCORE_BENCH_CLUSTER": "64"})
     assert out.returncode == 0, out.stderr[-2000:]
     line = out.stdout.strip().splitlines()[-1]
     rec = json.loads(line)
@@ -30,18 +29,29 @@ def test_bench_emits_json_line():
     assert rec["unit"] == "Mrays/s"
     assert rec["value"] > 0
     assert "vs_baseline" in rec
-    detail = json.loads(out.stderr.strip().splitlines()[-1])["detail"]
-    assert detail["hit_frac"] > 0.5
+    assert rec["hit_frac"] > 0.5
+    assert rec["device"]["platform"] == "cpu"
 
 
 @pytest.mark.slow
 def test_bench_traversal_engine():
     out = _run({"RAYCORE_BENCH_TRIS": "500", "RAYCORE_BENCH_RAYS": "1024",
-                "RAYCORE_BENCH_REPS": "1", "RAYCORE_BENCH_TILE": "512",
+                "RAYCORE_BENCH_REPS": "1",
                 "RAYCORE_BENCH_ENGINE": "traversal"})
     assert out.returncode == 0, out.stderr[-2000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["value"] > 0
+
+
+def test_bench_refuses_without_gpu():
+    """Without a GPU and without an explicit CPU rehearsal, bench.py
+    exits non-zero and prints no result."""
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["JAX_PLATFORMS"] = "cpu,"           # not the rehearsal switch
+    out = subprocess.run([sys.executable, "bench.py"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode != 0
+    assert '"metric"' not in out.stdout
 
 
 @pytest.mark.slow

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.core import bounds as B
+import raycore as rc
+from raycore.core import bounds as B
 
 
 def test_empty_default_invalid():

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.accel import morton, traversal as trav
-from raycore_tpu.accel.lbvh import build_blas, karras_topology, refit_aabbs
-from raycore_tpu.accel.types import INVALID_NODE, f32_as_i32
-from raycore_tpu.scene.tlas import TLAS, blas_to_static_tlas
+import raycore as rc
+from raycore.accel import morton, traversal as trav
+from raycore.accel.lbvh import build_blas, karras_topology, refit_aabbs
+from raycore.accel.types import INVALID_NODE, f32_as_i32
+from raycore.scene.tlas import TLAS, blas_to_static_tlas
 
 
 def rand_tris(rng, n, extent=2.0, size=0.1):
@@ -194,7 +194,7 @@ def test_stack_overflow_detected_and_retried(rng):
     np.testing.assert_allclose(np.asarray(r_small.t)[h1],
                                np.asarray(r_ref.t)[h2], rtol=1e-4, atol=1e-5)
     # The proven bound itself must never overflow.
-    from raycore_tpu.accel.traversal import stack_depth_bound, _trace
+    from raycore.accel.traversal import stack_depth_bound, _trace
     bound = stack_depth_bound(scene)
     flatr = lambda a: a.reshape((-1,) + a.shape[1:])
     _, ovf = _trace(scene, flatr(rays.o), flatr(rays.d), flatr(rays.t_min),

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.accel import wide
-from raycore_tpu.accel.lbvh import build_blas
-from raycore_tpu.accel.types import f32_as_i32
+import raycore as rc
+from raycore.accel import wide
+from raycore.accel.lbvh import build_blas
+from raycore.accel.types import f32_as_i32
 
 
 def rand_tris(rng, n, extent=2.0, size=0.1):

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.accel.protocol import TLASAccel, BruteAccel
-from raycore_tpu.accel.transport import RTRay, trace_closest_hits, trace_any_hits
-from raycore_tpu.scene.tlas import TLAS
+import raycore as rc
+from raycore.accel.protocol import TLASAccel, BruteAccel
+from raycore.accel.transport import RTRay, trace_closest_hits, trace_any_hits
+from raycore.scene.tlas import TLAS
 
 
 @pytest.fixture(params=[TLASAccel, BruteAccel])
@@ -87,7 +87,7 @@ def test_rt_transport_roundtrip():
 
 
 def test_soa_and_switch_utils():
-    from raycore_tpu.utils.soa import (soa_get, soa_set, similar_soa,
+    from raycore.utils.soa import (soa_get, soa_set, similar_soa,
                                        switch_apply, map_unrolled,
                                        sum_unrolled)
     soa = {"a": jnp.arange(4.0), "b": jnp.arange(4.0) * 10}

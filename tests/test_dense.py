@@ -1,15 +1,15 @@
-"""Dense clustered (MXU-featurized) engine tests — exact parity with the
+"""Dense clustered (matmul-featurized) engine tests — exact parity with the
 brute-force oracle."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.accel.dense import (build_dense, closest_hit_dense,
+import raycore as rc
+from raycore.accel.dense import (build_dense, closest_hit_dense,
                                      any_hit_dense, ray_features,
                                      _featurize_tris)
-from raycore_tpu.core.triangle import fast_intersect_triangle
+from raycore.core.triangle import fast_intersect_triangle
 
 
 def test_featurization_matches_mt(rng):
@@ -162,8 +162,8 @@ def test_flat_shaded_normals_recompute():
 
 
 def test_bake_dense_matches_tlas():
-    from raycore_tpu.scene.tlas import TLAS
-    from raycore_tpu.scene.bake import bake_dense
+    from raycore.scene.tlas import TLAS
+    from raycore.scene.bake import bake_dense
     mgr = TLAS()
     mgr.push(rc.sphere_mesh(radius=1.0, n_theta=12, n_phi=24), None)
     tr = np.eye(3, 4, dtype=np.float32)
@@ -193,8 +193,8 @@ def test_bake_dense_matches_tlas():
     np.testing.assert_array_equal(np.asarray(rt.instance_idx)[m],
                                   np.asarray(rd.instance_idx)[m])
     assert np.asarray(rd.instance_idx)[~m].max(initial=-1) == -1
-    # The Pallas worklist engine's finalize path reports it too.
-    from raycore_tpu.ops.pallas_dense import closest_hit_dense_pallas_auto
+    # The worklist sweep engine's finalize path reports it too.
+    from raycore.ops.pallas_dense import closest_hit_dense_pallas_auto
     rp = closest_hit_dense_pallas_auto(scene_d, rays, tile=128)
     np.testing.assert_array_equal(np.asarray(rt.hit), np.asarray(rp.hit))
     np.testing.assert_array_equal(np.asarray(rt.instance_idx)[m],
@@ -203,7 +203,7 @@ def test_bake_dense_matches_tlas():
 
 def test_prims_hot_is_int32():
     """Layout discipline: prims_hot must be int32 end-to-end. Small ints
-    bitcast into f32 are denormals, and TPU f32 ops flush denormals to
+    bitcast into f32 are denormals, and f32 ops may flush denormals to
     zero — an f32 hot matrix silently zeroed every hit's prim index and
     metadata on device (CPU tests can't catch the flush itself, so pin
     the dtype)."""

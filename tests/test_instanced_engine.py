@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.accel import traversal as trav
-from raycore_tpu.ops.pallas_instanced import (any_hit_instanced,
+import raycore as rc
+from raycore.accel import traversal as trav
+from raycore.ops.pallas_instanced import (any_hit_instanced,
                                               closest_hit_instanced)
-from raycore_tpu.scene.instanced import bake_instanced, refresh_instances
-from raycore_tpu.scene.tlas import TLAS
+from raycore.scene.instanced import bake_instanced, refresh_instances
+from raycore.scene.tlas import TLAS
 
 
 def _transform(rng, scale_lo=0.4, scale_hi=1.2, span=3.0):
@@ -167,7 +167,7 @@ def test_instanced_static_caps_inside_jit(rng):
     pipelines — warm up eagerly once, derive static capacities via
     instanced_capacity_hint, then run the SAME query under jax.jit with
     closest_hit_instanced_static; results identical, totals validate."""
-    from raycore_tpu.ops.pallas_instanced import (
+    from raycore.ops.pallas_instanced import (
         closest_hit_instanced_static, instanced_capacity_hint)
     mgr, _ = _scene(rng, n_inst=6)
     ds = bake_instanced(mgr, cluster_size=32)

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.core import triangle as T
+import raycore as rc
+from raycore.core import triangle as T
 
 
 def make_tri(v0, v1, v2):

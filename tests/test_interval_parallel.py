@@ -13,10 +13,10 @@ from types import SimpleNamespace
 import numpy as np
 import jax.numpy as jnp
 
-from raycore_tpu.accel.dense import _phase_a_tile_entry
-from raycore_tpu.core.triangle import safe_invdir
-from raycore_tpu.ops.pallas_dense import phase_a_entry
-from raycore_tpu.ops.pallas_regroup import refine_pairs, subgroup_stats
+from raycore.accel.dense import _phase_a_tile_entry
+from raycore.core.triangle import safe_invdir
+from raycore.ops.pallas_dense import phase_a_entry
+from raycore.ops.pallas_regroup import refine_pairs, subgroup_stats
 
 O = np.array([0.3, 0.7 - 1e-6, 3.0], np.float32)   # 1e-6 inside the y face
 D = np.array([0.0, 0.0, -1.0], np.float32)
@@ -48,7 +48,7 @@ def test_dense_phase_a_keeps_parallel_inside_ray():
 
 def test_pallas_phase_a_keeps_parallel_inside_ray():
     o, d, t_min, t_max = _rays()
-    entry = phase_a_entry(_scene(), o, d, t_min, t_max, 1, 8, True)
+    entry = phase_a_entry(_scene(), o, d, t_min, t_max, 1, 8)
     assert np.isfinite(float(entry[0, 0]))
 
 

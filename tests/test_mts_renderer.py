@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import raycore_tpu as rc
-from raycore_tpu.collections.multitypeset import MultiTypeSet
-from raycore_tpu.render import mts_renderer as M
-from raycore_tpu.render.wavefront import Camera, PointLights, RenderConfig
-from raycore_tpu.scene.tlas import TLAS
+import raycore as rc
+from raycore.collections.multitypeset import MultiTypeSet
+from raycore.render import mts_renderer as M
+from raycore.render.wavefront import Camera, PointLights, RenderConfig
+from raycore.scene.tlas import TLAS
 import pytest
 
 

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.scene.obj import (_parse_obj_native, _parse_obj_python,
+import raycore as rc
+from raycore.scene.obj import (_parse_obj_native, _parse_obj_python,
                                    load_obj)
 
 OBJ = """\

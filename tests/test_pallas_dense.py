@@ -1,12 +1,12 @@
-"""Pallas worklist-kernel engine tests (interpret mode on CPU)."""
+"""Tile worklist sweep engine tests (kernels in interpret mode on CPU)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.accel.dense import build_dense
-from raycore_tpu.ops.pallas_dense import (build_worklist,
+import raycore as rc
+from raycore.accel.dense import build_dense
+from raycore.ops.pallas_dense import (build_worklist,
                                           closest_hit_dense_pallas)
 
 
@@ -35,7 +35,7 @@ def test_worklist_structure():
 def test_compact_indices_lowerings_agree(cap, monkeypatch):
     """The argsort and cumsum+scatter lowerings of compact_indices must
     produce identical in-order selections (incl. overflow truncation)."""
-    from raycore_tpu.ops.pallas_dense import compact_indices
+    from raycore.ops.pallas_dense import compact_indices
     rng = np.random.default_rng(7)
     flat = jnp.asarray(rng.random(1000) < 0.13)
     outs = {}
@@ -133,7 +133,7 @@ def test_overflow_detection(scene):
 
 @pytest.mark.slow
 def test_occlusion_kernel_matches_closest(scene, rng):
-    from raycore_tpu.ops.pallas_dense import any_hit_dense_pallas_auto
+    from raycore.ops.pallas_dense import any_hit_dense_pallas_auto
     xs = jnp.linspace(-0.9, 0.9, 24)
     X, Y = jnp.meshgrid(xs, xs, indexing="ij")
     o = jnp.stack([X, Y, jnp.full_like(X, 2.0)], -1).reshape(-1, 3)
@@ -164,7 +164,7 @@ def test_occlusion_kernel_matches_closest(scene, rng):
 
 
 def test_occlusion_kernel_t_range(scene):
-    from raycore_tpu.ops.pallas_dense import any_hit_dense_pallas_auto
+    from raycore.ops.pallas_dense import any_hit_dense_pallas_auto
     # Surface max height ~0.3; origin at z=2. t_max=1.0 cannot reach it.
     o = jnp.asarray([[0.1, 0.1, 2.0]])
     d = jnp.asarray([[0.0, 0.0, -1.0]])
@@ -177,9 +177,9 @@ def test_occlusion_kernel_t_range(scene):
 
 
 def test_occlusion_kernel_instance_idx():
-    from raycore_tpu.scene.tlas import TLAS
-    from raycore_tpu.scene.bake import bake_dense
-    from raycore_tpu.ops.pallas_dense import any_hit_dense_pallas_auto
+    from raycore.scene.tlas import TLAS
+    from raycore.scene.bake import bake_dense
+    from raycore.ops.pallas_dense import any_hit_dense_pallas_auto
     mgr = TLAS()
     mgr.push(rc.sphere_mesh(radius=1.0, n_theta=10, n_phi=20), None)
     tr = np.eye(3, 4, dtype=np.float32)

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.render.pathtracer import PTConfig, trace_paths
-from raycore_tpu.render.scenes import example_scene
-from raycore_tpu.collections.multitypeset import MultiTypeSet
+import raycore as rc
+from raycore.render.pathtracer import PTConfig, trace_paths
+from raycore.render.scenes import example_scene
+from raycore.collections.multitypeset import MultiTypeSet
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def test_textured_albedo(room):
 
 @pytest.mark.slow
 def test_staged_matches_jitted(room):
-    from raycore_tpu.render.pathtracer import trace_paths_staged
+    from raycore.render.pathtracer import trace_paths_staged
     scene, mats, lights, cam = room
     cfg = PTConfig(width=32, height=24, spp=1, bounces=3, tile_size=256)
     a = np.asarray(trace_paths(scene, mats, lights, cam,
@@ -103,7 +103,7 @@ def test_staged_batch_matches_solo_frames(room):
     the SAME path; the only residual is XLA fusing the shading
     reductions differently at the 2R shape (measured 9e-08 max abs on
     this scene — tie-flips or draw mixups would show at 1e-2)."""
-    from raycore_tpu.render.pathtracer import (trace_paths_staged,
+    from raycore.render.pathtracer import (trace_paths_staged,
                                                trace_paths_staged_batch)
     scene, mats, lights, cam = room
     cfg = PTConfig(width=24, height=16, spp=2, bounces=3, tile_size=256)
@@ -123,7 +123,7 @@ def test_staged_pipelined_matches(room):
     to the per-query staged driver: the deferral only removes host
     syncs, never changes what is computed. On engines without a
     deferred mode the queries degrade to their normal sync path."""
-    from raycore_tpu.render.pathtracer import trace_paths_staged
+    from raycore.render.pathtracer import trace_paths_staged
     scene, mats, lights, cam = room
     cfg = PTConfig(width=32, height=24, spp=1, bounces=3, tile_size=256)
     a = np.asarray(trace_paths_staged(scene, mats, lights, cam,
@@ -141,10 +141,10 @@ def test_staged_pipelined_dense_regroup(monkeypatch):
     per-query (warms capacities + fused graphs), then a pipelined frame
     — every warm query must defer (finalizers validate at frame end)
     and the image must match the per-query frame bit-for-bit."""
-    from raycore_tpu.render.pathtracer import trace_paths_staged
-    from raycore_tpu.accel.dense import build_dense
-    from raycore_tpu.accel import dispatch as _disp
-    from raycore_tpu.render.wavefront import Materials, PointLights, Camera
+    from raycore.render.pathtracer import trace_paths_staged
+    from raycore.accel.dense import build_dense
+    from raycore.accel import dispatch as _disp
+    from raycore.render.wavefront import Materials, PointLights, Camera
     monkeypatch.setattr(_disp, "REGROUP_MIN_RAYS", 256)
     monkeypatch.setenv("RAYCORE_DISPATCH_REGROUP", "1")
     tris = rc.displaced_grid_mesh(n=24)
@@ -169,11 +169,11 @@ def test_staged_batch_pipelined_dense_regroup(monkeypatch):
     Warm the 2R-ray query shape per-query first, then the pipelined
     batch must match it bit-for-bit (deferral never changes values),
     and each frame must match its solo per-query render to ulp."""
-    from raycore_tpu.render.pathtracer import (trace_paths_staged,
+    from raycore.render.pathtracer import (trace_paths_staged,
                                                trace_paths_staged_batch)
-    from raycore_tpu.accel.dense import build_dense
-    from raycore_tpu.accel import dispatch as _disp
-    from raycore_tpu.render.wavefront import Materials, PointLights, Camera
+    from raycore.accel.dense import build_dense
+    from raycore.accel import dispatch as _disp
+    from raycore.render.wavefront import Materials, PointLights, Camera
     monkeypatch.setattr(_disp, "REGROUP_MIN_RAYS", 256)
     monkeypatch.setenv("RAYCORE_DISPATCH_REGROUP", "1")
     tris = rc.displaced_grid_mesh(n=24)
@@ -195,9 +195,9 @@ def test_staged_batch_pipelined_dense_regroup(monkeypatch):
 
 @pytest.mark.slow
 def test_staged_dense_scene():
-    from raycore_tpu.render.pathtracer import trace_paths_staged
-    from raycore_tpu.accel.dense import build_dense
-    from raycore_tpu.render.wavefront import Materials, PointLights, Camera
+    from raycore.render.pathtracer import trace_paths_staged
+    from raycore.accel.dense import build_dense
+    from raycore.render.wavefront import Materials, PointLights, Camera
     tris = rc.displaced_grid_mesh(n=24)
     ds = build_dense(tris, cluster_size=64)
     mats = Materials.create(base_color=np.full((2000, 3), 0.6, np.float32))

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.render import simple as S
-from raycore_tpu.render.scenes import example_scene
+import raycore as rc
+from raycore.render import simple as S
+from raycore.render.scenes import example_scene
 
 
 @pytest.fixture(scope="module")

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.parallel import sharding as sh
-from raycore_tpu.scene.io import save_scene, load_scene
-from raycore_tpu.scene.tlas import TLAS
-from raycore_tpu.accel.dense import build_dense, closest_hit_dense
+import raycore as rc
+from raycore.parallel import sharding as sh
+from raycore.scene.io import save_scene, load_scene
+from raycore.scene.tlas import TLAS
+from raycore.accel.dense import build_dense, closest_hit_dense
 
 
 @pytest.fixture(scope="module")

@@ -8,10 +8,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import raycore_tpu as rc
-from raycore_tpu.accel import traversal as trav
-from raycore_tpu.accel.types import next_pow2
-from raycore_tpu.scene.tlas import TLAS
+import raycore as rc
+from raycore.accel import traversal as trav
+from raycore.accel.types import next_pow2
+from raycore.scene.tlas import TLAS
 
 
 def sphere(radius=1.0, nt=8, np_=16):

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raycore_tpu.accel.dense import ray_features, _featurize_tris
-from raycore_tpu.ops import two_phase
-from raycore_tpu.ops.two_phase import EDGE_EPS, classify, ray_verdict
+from raycore.accel.dense import ray_features, _featurize_tris
+from raycore.ops import two_phase
+from raycore.ops.two_phase import EDGE_EPS, classify, ray_verdict
 
 FEAT = 16
 
